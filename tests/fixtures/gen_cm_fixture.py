@@ -3,7 +3,7 @@ HMMER3/f euk fixture models as each CM's embedded p7 FILTER HMM.
 
 Infernal .cm files ("CM file format", Infernal User Guide; the
 Rfam 14.10 models the reference's pybarrnap variant uses,
-/root/reference/README.md:50-51) store, per model:
+the reference README.md:50-51) store, per model:
 
     INFERNAL1/a [...]          header + key-value fields
     CM                         covariance-model node/state body
@@ -12,12 +12,12 @@ Rfam 14.10 models the reference's pybarrnap variant uses,
     //                         filter terminator
 
 The generated fixture carries a minimal-but-shaped CM body (the
-tpu_orc CM ingestion reads only the header fields and the embedded
-filter HMM — docstring of tpu_orc/rrna/cm.py) and the real fixture
+nano_orc CM ingestion reads only the header fields and the embedded
+filter HMM — docstring of nano_orc/rrna/cm.py) and the real fixture
 HMMs re-alphabetized to RNA (T -> U) exactly as cmbuild stores
 filters.
 
-Usage: PYTHONPATH=/root/repo python tests/fixtures/gen_cm_fixture.py
+Usage (from the repository root): PYTHONPATH=. python tests/fixtures/gen_cm_fixture.py
 """
 import os
 import re
@@ -83,7 +83,7 @@ def cm_shell(name, acc, clen):
         "ECMLC    0.62369    -8.95393  0.81613     1600000  531847  0.002258",
         "CM",
         # minimal shaped CM body: ROOT node + MATL chain stub — the
-        # tpu_orc reader skips to the filter HMM, but keep the grammar
+        # nano_orc reader skips to the filter HMM, but keep the grammar
         # recognizable for eyeballing
         "                                             [ ROOT    0 ]"
         "      -      -      -      -      -      -",

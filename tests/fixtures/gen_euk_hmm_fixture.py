@@ -16,7 +16,7 @@ can sample sequences from the model and assert Viterbi finds them at
 the right coordinates. The emissions/transitions are written as
 NEGATIVE NATURAL LOGS exactly as HMMER stores them.
 
-Usage: PYTHONPATH=/root/repo python tests/fixtures/gen_euk_hmm_fixture.py
+Usage (from the repository root): PYTHONPATH=. python tests/fixtures/gen_euk_hmm_fixture.py
 """
 import json
 import math

@@ -2,6 +2,9 @@
 checked in). Regenerate only for an intentional behavior change and
 document it in the commit message.
 
+Runs on the CPU path (JAX_PLATFORMS=cpu) against the seeded banks of
+nano_orc.synth (seed 0, as the tests' ``adapters_dir`` fixture).
+
 Produces:
   golden_coi.fastq   30 COI-length reads (SP5_004/SP27_005, COI primer
                      pair A, ~450 bp inserts, half reverse-complemented)
@@ -13,20 +16,19 @@ Produces:
                      cleaned contigs, stage-05 18S/28S extractions, and
                      COI_gene reorganisation.
 
-Usage: PYTHONPATH=/root/repo python tests/fixtures/gen_golden_e2e.py
+Usage (from the repository root): PYTHONPATH=. python tests/fixtures/gen_golden_e2e.py
 """
 import json
 import os
 import random
 
-from tpu_orc.demux.adapters import AdapterBank
-from tpu_orc.demux.primer_clean import parse_primer_pairs
-from tpu_orc.io import encode
-from tpu_orc.io.fastq import Record, write_records
-from tpu_orc.rrna.anchors import ANCHOR_18S_END, ANCHOR_28S_START
+from nano_orc.demux.adapters import AdapterBank
+from nano_orc.demux.primer_clean import parse_primer_pairs
+from nano_orc.io import encode
+from nano_orc.io.fastq import Record, write_records
+from nano_orc.rrna.anchors import ANCHOR_18S_END, ANCHOR_28S_START
 
 FIX = os.path.dirname(os.path.abspath(__file__))
-REF = "/root/reference/adapters_primers"
 
 random.seed(20260819)
 
@@ -60,12 +62,17 @@ def concretize(s):
 
 
 def main():
-    sp5 = AdapterBank.from_fasta(f"{REF}/M13_amplicon_indices_forward.fa",
+    import tempfile
+
+    from nano_orc import synth
+    # the same banks as the tests' adapters_dir fixture (seed 0)
+    adapters_dir = synth.write_banks(tempfile.mkdtemp(), seed=0)
+    sp5 = AdapterBank.from_fasta(f"{adapters_dir}/M13_amplicon_indices_forward.fa",
                                  0.1)
     sp27 = AdapterBank.from_fasta(
-        f"{REF}/M13_amplicon_indices_reverse_rc.fa", 0.1)
-    coi_pairs = parse_primer_pairs(f"{REF}/COI_primers.fa")
-    rna_pairs = parse_primer_pairs(f"{REF}/RNA_primers.fa")
+        f"{adapters_dir}/M13_amplicon_indices_reverse_rc.fa", 0.1)
+    coi_pairs = parse_primer_pairs(f"{adapters_dir}/COI_primers.fa")
+    rna_pairs = parse_primer_pairs(f"{adapters_dir}/RNA_primers.fa")
 
     # --- COI dataset: two species templates, 450 bp -----------------------
     t1, t2 = rand(450), rand(450)
@@ -114,13 +121,13 @@ def main():
     # --- run both pipelines and freeze the outputs -----------------------
     import tempfile
 
-    from tpu_orc.pipeline.stages import PipelineConfig, run_all
+    from nano_orc.pipeline.stages import PipelineConfig, run_all
     exp = {}
     for name, amp, path in (("coi", "COI", "golden_coi.fastq"),
                             ("rrna", "RNA", "golden_rrna.fastq")):
         with tempfile.TemporaryDirectory() as td:
             rep = run_all(os.path.join(FIX, path), td, name, amp,
-                          cfg=PipelineConfig())
+                          cfg=PipelineConfig(adapters_dir))
             ds = {"demux_bins": rep["demux"],
                   "barcodes": rep["barcodes"]}
             (bc,) = rep["barcodes"].keys()

@@ -26,12 +26,12 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 from jax.sharding import PartitionSpec as P  # noqa: E402
 
-from tpu_orc.cluster.engine import AmpliconSorter, SorterConfig  # noqa
-from tpu_orc.cluster.output import write_barcode_consensus  # noqa: E402
-from tpu_orc.cluster.scoring import DeviceScorer  # noqa: E402
-from tpu_orc.dist.multihost import (global_mesh, host_file_shard,  # noqa
+from nano_orc.cluster.engine import AmpliconSorter, SorterConfig  # noqa
+from nano_orc.cluster.output import write_barcode_consensus  # noqa: E402
+from nano_orc.cluster.scoring import DeviceScorer  # noqa: E402
+from nano_orc.dist.multihost import (global_mesh, host_file_shard,  # noqa
                                     init_multihost, is_coordinator)
-from tpu_orc.io.fastq import read_records  # noqa: E402
+from nano_orc.io.fastq import read_records  # noqa: E402
 
 ppid, pcount = init_multihost(coordinator, nprocs, pid)
 mesh = global_mesh()

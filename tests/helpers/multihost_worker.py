@@ -18,7 +18,7 @@ import jax  # noqa: E402
 jax.config.update("jax_platforms", "cpu")
 import numpy as np  # noqa: E402
 
-from tpu_orc.dist.multihost import (global_mesh, host_file_shard,  # noqa
+from nano_orc.dist.multihost import (global_mesh, host_file_shard,  # noqa
                                     init_multihost, is_coordinator)
 
 ppid, pcount = init_multihost(coordinator, nprocs, pid)

@@ -2,13 +2,13 @@
 import numpy as np
 import pytest
 
-from tpu_orc.analysis.lca import (compute_lca, derive_metadata, lca_table,
+from nano_orc.analysis.lca import (compute_lca, derive_metadata, lca_table,
                                   RANKS)
-from tpu_orc.analysis.phylo import (aln_matrix, dist_matrix, faith_pd,
+from nano_orc.analysis.phylo import (aln_matrix, dist_matrix, faith_pd,
                                     midpoint_root, nj_tree, overlap_matrix,
                                     parse_newick)
-from tpu_orc.analysis.anchors import AnchorFilterConfig, run_anchor_filter
-from tpu_orc.io.fastq import Record, write_records
+from nano_orc.analysis.anchors import AnchorFilterConfig, run_anchor_filter
+from nano_orc.io.fastq import Record, write_records
 
 
 def test_derive_metadata_primer_sets():
@@ -159,7 +159,7 @@ def test_anchor_filter_pipeline(tmp_path, rng):
 
 
 def test_wrangle_metadata(tmp_path):
-    from tpu_orc.analysis.reports import wrangle_metadata, success_metrics
+    from nano_orc.analysis.reports import wrangle_metadata, success_metrics
     blast = [dict(plate="day1", SP27="1", SP5="3", barcode="CO1",
                   max_readcount_group="2", max_readcount="40",
                   hit1_expect="Y", hit1_primer_set="Moorea",
@@ -185,7 +185,7 @@ def test_wrangle_metadata(tmp_path):
 
 
 def test_stage_read_flow(tmp_path):
-    from tpu_orc.analysis.reports import stage_read_flow
+    from nano_orc.analysis.reports import stage_read_flow
     rows = stage_read_flow({"raw": {"b1": 100}, "demux": {"b1": 80}},
                            str(tmp_path / "flow.tsv"))
     assert len(rows) == 2

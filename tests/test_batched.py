@@ -2,10 +2,10 @@
 import numpy as np
 import pytest
 
-from tpu_orc.align import FRONT, BACK, PREFIX, SUFFIX
-from tpu_orc.align.oracle import locate
-from tpu_orc.align.batched import batched_locate, make_k_table, make_n_prefix
-from tpu_orc.io import encode
+from nano_orc.align import FRONT, BACK, PREFIX, SUFFIX
+from nano_orc.align.oracle import locate
+from nano_orc.align.batched import batched_locate, make_k_table, make_n_prefix
+from nano_orc.io import encode
 
 
 def run_both(refs, reads, e, flags, min_overlap=3):

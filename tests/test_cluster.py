@@ -4,13 +4,13 @@ SURVEY.md §7.4.3)."""
 import numpy as np
 import pytest
 
-from tpu_orc.cluster.consensus import build_consensus, consensus_direction
-from tpu_orc.cluster.engine import (AmpliconSorter, SorterConfig,
+from nano_orc.cluster.consensus import build_consensus, consensus_direction
+from nano_orc.cluster.engine import (AmpliconSorter, SorterConfig,
                                     estimate_ssg)
-from tpu_orc.cluster.unionfind import UnionFind
-from tpu_orc.io import encode
-from tpu_orc.io.fastq import Record
-from tpu_orc import native
+from nano_orc.cluster.unionfind import UnionFind
+from nano_orc.io import encode
+from nano_orc.io.fastq import Record
+from nano_orc import native
 
 
 def noisy(rng, s, err=0.08):
@@ -143,7 +143,7 @@ def test_species_stage_no_cross_group_leak():
     the reference's read_indexes (amplicon_sorter.py:1341-1461) operates
     strictly within one gene group. Models a dropped <=5-read gene group
     leaking into a kept one."""
-    from tpu_orc.cluster.scoring import PairHits
+    from nano_orc.cluster.scoring import PairHits
     rng = np.random.default_rng(5)
     tA = "".join(rng.choice(list("ACGT"), size=400))
     tB = "".join(rng.choice(list("ACGT"), size=400))
@@ -172,7 +172,7 @@ def test_ambiguous_consensus_iupac():
     Local fixed-seed rng: with the session rng the template depends on
     test order, and a template whose het site lands inside a repeat can
     legitimately shift the column layout."""
-    from tpu_orc.cluster.consensus import build_consensus_iupac
+    from nano_orc.cluster.consensus import build_consensus_iupac
     rng = np.random.default_rng(1234)
     template = "".join(rng.choice(list("ACGT"), size=200))
     reads = []
@@ -191,7 +191,7 @@ def test_native_pileup_matches_python_path(rng):
     """The fused C++ pileup (native.pileup_batch) reproduces the Python
     _align_rows + column_counts reference path bit-for-bit, including
     merged/right-aligned insertion columns and the draft row's vote."""
-    from tpu_orc.cluster import consensus as C
+    from nano_orc.cluster import consensus as C
     for trial in range(8):
         L = int(rng.integers(30, 350))
         base = rng.integers(0, 4, size=L).astype(np.uint8)
@@ -215,7 +215,7 @@ def test_native_pileup_matches_python_path(rng):
 
 
 def test_nw_dist_batch_matches_singles(rng):
-    from tpu_orc import native
+    from nano_orc import native
     q = rng.integers(0, 4, size=200).astype(np.uint8)
     seqs = [rng.integers(0, 4, size=int(rng.integers(50, 400))
                          ).astype(np.uint8) for _ in range(15)]
@@ -225,7 +225,7 @@ def test_nw_dist_batch_matches_singles(rng):
 
 
 def test_all_vs_all_threaded_matches_single(rng):
-    from tpu_orc import native
+    from nano_orc import native
     seqs = [rng.integers(0, 4, size=int(rng.integers(100, 200))
                          ).astype(np.uint8) for _ in range(20)]
     d1 = native.all_vs_all(seqs, band=1.05, nthreads=1)
@@ -236,7 +236,7 @@ def test_all_vs_all_threaded_matches_single(rng):
 def test_hw_sims_pairs_matches_per_pair(rng):
     """The batched G^2 consensus-pair scorer (one native crossing,
     orc_hw_pairs) returns exactly what per-pair _hw_sim computes."""
-    from tpu_orc.cluster.engine import AmpliconSorter, SorterConfig
+    from nano_orc.cluster.engine import AmpliconSorter, SorterConfig
     eng = AmpliconSorter(SorterConfig())
     cons = []
     for _ in range(7):
@@ -247,32 +247,6 @@ def test_hw_sims_pairs_matches_per_pair(rng):
     sims = eng._hw_sims_pairs(cons, pairs)
     for (a, b), s in zip(pairs, sims):
         assert abs(s - eng._hw_sim(cons[a], cons[b])) < 1e-9, (a, b)
-
-
-def test_device_pileup_backend_parity(rng):
-    """The Pallas path-bits kernel + C++ traceback-from-bits (consensus
-    backend='device') reproduces the host pileup counts bit-for-bit
-    (interpret mode on CPU; the same kernel runs compiled on TPU)."""
-    from tpu_orc.cluster import consensus as C
-    for trial in range(4):
-        L = int(rng.integers(40, 260))
-        base = rng.integers(0, 4, size=L).astype(np.uint8)
-        reads = []
-        for _ in range(int(rng.integers(1, 12))):
-            s = list(base)
-            for _ in range(int(rng.integers(0, max(2, L // 8)))):
-                op = int(rng.integers(0, 3))
-                p = int(rng.integers(0, len(s)))
-                if op == 0:
-                    s[p] = int(rng.integers(0, 5))
-                elif op == 1 and len(s) > 1:
-                    del s[p]
-                else:
-                    s.insert(p, int(rng.integers(0, 5)))
-            reads.append(np.array(s, np.uint8))
-        a = C.pileup_counts(base, reads, backend="native")
-        b = C.pileup_counts(base, reads, backend="device")
-        assert a.shape == b.shape and (a == b).all(), trial
 
 
 def _mutate_reads(rng, base, n, rate=8):
@@ -292,50 +266,12 @@ def _mutate_reads(rng, base, n, rate=8):
     return reads
 
 
-def test_multi_group_pileup_parity():
-    """ONE multi-group kernel launch (path_bits_groups, scalar-prefetched
-    draft selection) returns per-group counts bit-identical to per-group
-    calls — across drafts of different word counts (W padding inert) and
-    group sizes straddling the TJ=128 tile boundary."""
-    from tpu_orc.cluster import consensus as C
-
-    rng = np.random.default_rng(21)
-    drafts, groups = [], []
-    for L, R in ((45, 3), (200, 1), (700, 130), (120, 17)):
-        base = rng.integers(0, 4, size=L).astype(np.uint8)
-        drafts.append(base)
-        groups.append(_mutate_reads(rng, base, R))
-    multi = C.pileup_counts_multi(drafts, groups, backend="device")
-    for d, rs, m in zip(drafts, groups, multi):
-        a = C.pileup_counts(d, rs, backend="native")
-        assert a.shape == m.shape and (a == m).all()
-
-
-def test_build_consensus_multi_parity(monkeypatch):
-    """build_consensus_multi == per-group build_consensus on both the
-    native and the batched device backends (incl. empty and 1-read
-    groups)."""
-    from tpu_orc.cluster import consensus as C
-
-    rng = np.random.default_rng(22)
-    groups = [[]]
-    for L, R in ((150, 1), (260, 9), (90, 40)):
-        base = rng.integers(0, 4, size=L).astype(np.uint8)
-        groups.append(_mutate_reads(rng, base, R))
-    expect = [C.build_consensus(g) for g in groups]
-    for backend in ("native", "device"):
-        monkeypatch.setattr(C, "PILEUP_BACKEND", backend)
-        got = C.build_consensus_multi(groups)
-        for e, g in zip(expect, got):
-            assert (np.asarray(e) == np.asarray(g)).all(), backend
-
-
 def test_engine_sort_device_backend_identical(monkeypatch):
-    """Full sort with the batched device consensus == native backend:
+    """Full sort with the python pileup backend == native backend:
     identical species groups and consensus strings."""
-    from tpu_orc.cluster import consensus as C
-    from tpu_orc.cluster.engine import AmpliconSorter, SorterConfig
-    from tpu_orc.io.fastq import Record
+    from nano_orc.cluster import consensus as C
+    from nano_orc.cluster.engine import AmpliconSorter, SorterConfig
+    from nano_orc.io.fastq import Record
 
     rng = np.random.default_rng(23)
     t1 = "".join("ACGT"[c] for c in rng.integers(0, 4, 320))
@@ -349,21 +285,21 @@ def test_engine_sort_device_backend_identical(monkeypatch):
                 s[p] = "ACGT"[int(rng.integers(0, 4))]
             recs.append(Record(f"r{k}_{i}", f"r{k}_{i}", "".join(s)))
     results = {}
-    for backend in ("native", "device"):
+    for backend in ("native", "python"):
         monkeypatch.setattr(C, "PILEUP_BACKEND", backend)
         eng = AmpliconSorter(SorterConfig(min_length=1, seed=5))
         res = eng.sort_records(recs)
         results[backend] = [
             (tuple(sorted(g.members)), g.consensus)
             for gg in res.species for g in gg]
-    assert results["native"] == results["device"]
+    assert results["native"] == results["python"]
 
 
 def test_entries_from_counts_matches_python_homopolymersort():
     """The lexsort-vectorized consensus pass equals the per-run Python
     sort reference on random pileups (incl. tie columns)."""
     import numpy as np
-    from tpu_orc.cluster.consensus import (_entries_from_counts,
+    from nano_orc.cluster.consensus import (_entries_from_counts,
                                            _homopolymersort,
                                            top2_from_counts)
     rng = np.random.default_rng(123)
@@ -392,8 +328,8 @@ def test_sort_cli_flags_aln_all_ho(tmp_path):
     amplicon_sorter.py:172-184."""
     import json
     import numpy as np
-    from tpu_orc.cli import main as cli_main
-    from tpu_orc.io.fastq import Record, write_records
+    from nano_orc.cli import main as cli_main
+    from nano_orc.io.fastq import Record, write_records
 
     rng = np.random.default_rng(31)
     t1 = "".join(rng.choice(list("ACGT"), size=340))
@@ -433,8 +369,8 @@ def test_sort_cli_folder_input(tmp_path):
     import json
 
     import numpy as np
-    from tpu_orc.cli import main as cli_main
-    from tpu_orc.io.fastq import Record, write_records
+    from nano_orc.cli import main as cli_main
+    from nano_orc.io.fastq import Record, write_records
 
     rng = np.random.default_rng(41)
     ind = tmp_path / "bins"

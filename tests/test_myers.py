@@ -2,9 +2,9 @@
 import numpy as np
 import pytest
 
-from tpu_orc.align.oracle import edit_distance
-from tpu_orc.align.myers import distances, n_words
-from tpu_orc.io import encode
+from nano_orc.align.oracle import edit_distance
+from nano_orc.align.myers import distances, n_words
+from nano_orc.io import encode
 
 
 def run_tile(patterns, texts, mode):

@@ -2,10 +2,10 @@
 import numpy as np
 import pytest
 
-from tpu_orc import native
-from tpu_orc.align import FRONT, BACK, PREFIX, SUFFIX
-from tpu_orc.align.oracle import locate as py_locate, edit_distance as py_ed
-from tpu_orc.io import encode
+from nano_orc import native
+from nano_orc.align import FRONT, BACK, PREFIX, SUFFIX
+from nano_orc.align.oracle import locate as py_locate, edit_distance as py_ed
+from nano_orc.io import encode
 
 
 @pytest.mark.parametrize("mode", ["NW", "SHW", "HW"])

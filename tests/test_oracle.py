@@ -2,8 +2,8 @@
 import numpy as np
 import pytest
 
-from tpu_orc.align import FRONT, BACK, PREFIX, SUFFIX
-from tpu_orc.align.oracle import locate, edit_distance, similarity
+from nano_orc.align import FRONT, BACK, PREFIX, SUFFIX
+from nano_orc.align.oracle import locate, edit_distance, similarity
 
 
 def brute_force_locate(ref, qry, e, flags, min_overlap=3):
@@ -16,8 +16,8 @@ def brute_force_locate(ref, qry, e, flags, min_overlap=3):
     be shadowed by an equal-or-lower-cost path with a different origin
     that fails acceptance (shorter overlap). Returns (best_cost, hits)
     where hits is every acceptable (rs, qs, re, qe, cost)."""
-    from tpu_orc.align.spec import Flag
-    from tpu_orc.io import encode
+    from nano_orc.align.spec import Flag
+    from nano_orc.io import encode
     rm = encode.encode_ref_masks(ref)
     qm = encode.encode_read_masks(qry)
     m, n = len(rm), len(qm)
@@ -44,7 +44,7 @@ def brute_force_locate(ref, qry, e, flags, min_overlap=3):
                 for j in range(1, N + 1):
                     eqc = 0 if (sub_r[i - 1] & sub_q[j - 1]) else 1
                     D[i, j] = min(D[i-1, j-1] + eqc, D[i-1, j] + 1, D[i, j-1] + 1)
-            from tpu_orc.align.spec import Flag as F
+            from nano_orc.align.spec import Flag as F
             ends = {(M, N)}
             if flags & F.STOP_WITHIN_SEQ1:
                 ends |= {(re_, N) for re_ in range(M + 1)}

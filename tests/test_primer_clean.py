@@ -2,13 +2,11 @@
 primer FASTAs."""
 import pytest
 
-from tpu_orc.demux.primer_clean import (clean_primers, linked_trim,
+from nano_orc.demux.primer_clean import (clean_primers, linked_trim,
                                         parse_primer_pairs,
                                         residual_primer_failsafe)
-from tpu_orc.io import encode
-from tpu_orc.io.fastq import Record
-
-REF = "/root/reference/adapters_primers"
+from nano_orc.io import encode
+from nano_orc.io.fastq import Record
 
 
 def concretize(rng, s):
@@ -19,8 +17,8 @@ def concretize(rng, s):
     return "".join(str(rng.choice(list(table.get(c, c)))) for c in s)
 
 
-def test_parse_coi_pairs():
-    pairs = parse_primer_pairs(f"{REF}/COI_primers.fa")
+def test_parse_coi_pairs(adapters_dir):
+    pairs = parse_primer_pairs(f"{adapters_dir}/COI_primers.fa")
     ids = [p.pair_id for p in pairs]
     assert ids == ["A", "B"]
     # the shared reverse primer (Moorea_and_Sauron_Reverse_A_B) must be
@@ -28,13 +26,13 @@ def test_parse_coi_pairs():
     assert pairs[0].rev == pairs[1].rev
 
 
-def test_parse_rna_pairs():
-    pairs = parse_primer_pairs(f"{REF}/RNA_primers.fa")
+def test_parse_rna_pairs(adapters_dir):
+    pairs = parse_primer_pairs(f"{adapters_dir}/RNA_primers.fa")
     assert len(pairs) >= 2
 
 
-def test_linked_trim_recovers_insert(rng):
-    pairs = parse_primer_pairs(f"{REF}/COI_primers.fa")
+def test_linked_trim_recovers_insert(adapters_dir, rng):
+    pairs = parse_primer_pairs(f"{adapters_dir}/COI_primers.fa")
     insert = "".join(rng.choice(list("ACGT"), size=600))
     pa = pairs[0]
     seq = concretize(rng, pa.fwd) + insert + concretize(rng, pa.rev)
@@ -44,7 +42,7 @@ def test_linked_trim_recovers_insert(rng):
     assert trimmed[0].seq == insert
 
 
-def test_linked_requires_both():
+def test_linked_requires_both(adapters_dir):
     # Local pinned rng, NOT the shared session stream: the REV primer
     # has 9 IUPAC wildcards and a floor(0.1*26)=2 error budget, so ~3%
     # of random 400 bp inserts contain a chance REV match (cutadapt
@@ -53,15 +51,15 @@ def test_linked_requires_both():
     # REV-free.
     import numpy as np
     rng = np.random.default_rng(1)
-    pairs = parse_primer_pairs(f"{REF}/COI_primers.fa")
+    pairs = parse_primer_pairs(f"{adapters_dir}/COI_primers.fa")
     insert = "".join(rng.choice(list("ACGT"), size=400))
     seq = concretize(rng, pairs[0].fwd) + insert  # no reverse primer
     trimmed, untrimmed = linked_trim([Record("u", "u", seq)], pairs)
     assert not trimmed and len(untrimmed) == 1
 
 
-def test_failsafe_drops_residual(rng):
-    pairs = parse_primer_pairs(f"{REF}/COI_primers.fa")
+def test_failsafe_drops_residual(adapters_dir, rng):
+    pairs = parse_primer_pairs(f"{adapters_dir}/COI_primers.fa")
     good = Record("g", "g", "".join(rng.choice(list("ACGT"), size=500)))
     bad_seq = ("".join(rng.choice(list("ACGT"), size=30))
                + concretize(rng, pairs[0].fwd)
@@ -73,8 +71,8 @@ def test_failsafe_drops_residual(rng):
     assert dropped == ["b"]
 
 
-def test_failsafe_checks_revcomp(rng):
-    pairs = parse_primer_pairs(f"{REF}/COI_primers.fa")
+def test_failsafe_checks_revcomp(adapters_dir, rng):
+    pairs = parse_primer_pairs(f"{adapters_dir}/COI_primers.fa")
     seq = ("".join(rng.choice(list("ACGT"), size=300))
            + encode.revcomp(concretize(rng, pairs[0].rev))
            + "".join(rng.choice(list("ACGT"), size=40)))
@@ -83,10 +81,10 @@ def test_failsafe_checks_revcomp(rng):
     assert dropped == ["rc"]
 
 
-def test_failsafe_middle_not_checked(rng):
+def test_failsafe_middle_not_checked(adapters_dir, rng):
     """A primer buried mid-contig (outside the 100 bp ends) is allowed —
     matches the reference's ends-only scan."""
-    pairs = parse_primer_pairs(f"{REF}/COI_primers.fa")
+    pairs = parse_primer_pairs(f"{adapters_dir}/COI_primers.fa")
     seq = ("".join(rng.choice(list("ACGT"), size=200))
            + concretize(rng, pairs[0].fwd)
            + "".join(rng.choice(list("ACGT"), size=200)))
@@ -95,8 +93,8 @@ def test_failsafe_middle_not_checked(rng):
     assert not dropped
 
 
-def test_clean_primers_end_to_end(tmp_path, rng):
-    pairs = parse_primer_pairs(f"{REF}/COI_primers.fa")
+def test_clean_primers_end_to_end(adapters_dir, tmp_path, rng):
+    pairs = parse_primer_pairs(f"{adapters_dir}/COI_primers.fa")
     recs = []
     inserts = []
     for i in range(5):
@@ -107,7 +105,7 @@ def test_clean_primers_end_to_end(tmp_path, rng):
                            + concretize(rng, pairs[i % 2].rev)))
     recs.append(Record("junk", "junk",
                        "".join(rng.choice(list("ACGT"), size=500))))
-    clean, rep = clean_primers(recs, f"{REF}/COI_primers.fa",
+    clean, rep = clean_primers(recs, f"{adapters_dir}/COI_primers.fa",
                                outdir=str(tmp_path), name="t")
     assert rep.total == 6
     assert rep.trimmed == 5 and rep.untrimmed == 1
@@ -115,11 +113,11 @@ def test_clean_primers_end_to_end(tmp_path, rng):
     assert (tmp_path / "cleaned_t.fasta").exists()
 
 
-def test_match_read_wildcards_on_amb_consensus(rng):
+def test_match_read_wildcards_on_amb_consensus(adapters_dir, rng):
     """An -amb consensus can carry IUPAC codes inside the primer region;
     with --match-read-wildcards they count as matches (so the linked trim
     still fires at e=0.1), without it they count as mismatches."""
-    pairs = parse_primer_pairs(f"{REF}/COI_primers.fa")
+    pairs = parse_primer_pairs(f"{adapters_dir}/COI_primers.fa")
     pa = pairs[0]
     insert = "".join(rng.choice(list("ACGT"), size=600))
     fwd = list(concretize(rng, pa.fwd))
@@ -140,10 +138,10 @@ def test_match_read_wildcards_on_amb_consensus(rng):
     assert t_wc[0].seq == insert
 
 
-def test_failsafe_wildcards_spot_ambiguous_residual(rng):
+def test_failsafe_wildcards_spot_ambiguous_residual(adapters_dir, rng):
     """Residual-primer failsafe with wildcards: a leftover primer whose
     ambiguity codes survived into the contig is still detected."""
-    pairs = parse_primer_pairs(f"{REF}/COI_primers.fa")
+    pairs = parse_primer_pairs(f"{adapters_dir}/COI_primers.fa")
     pa = pairs[0]
     residual = pa.fwd  # keep the degenerate codes verbatim in the contig
     body = "".join(rng.choice(list("ACGT"), size=300))

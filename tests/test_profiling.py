@@ -1,11 +1,11 @@
 """Observability layer: stage timers, throughput counters, device trace.
 
 The reference's observability is echo narration + results.txt audit
-trails (SURVEY.md §5); this checks the TPU-native replacement."""
+trails (SURVEY.md §5); this checks the replacement."""
 import json
 import os
 
-from tpu_orc.utils.profiling import Metrics, device_trace
+from nano_orc.utils.profiling import Metrics, device_trace
 
 
 def test_stage_timer_counters_and_throughput(tmp_path, capsys):
@@ -22,7 +22,7 @@ def test_stage_timer_counters_and_throughput(tmp_path, capsys):
     assert s0["reads_per_s"] > 0          # derived from n_ counters
     assert d["total_wall_s"] >= s0["wall_s"]
     out = capsys.readouterr().out          # narration lines
-    assert "[tpu_orc] r1/02_demux" in out and "n_reads=128" in out
+    assert "[nano_orc] r1/02_demux" in out and "n_reads=128" in out
     p = tmp_path / "metrics.json"
     met.write(str(p))
     assert json.load(open(p))["run"] == "r1"
@@ -39,7 +39,7 @@ def test_stage_timer_skips_on_exception():
 
 
 def test_device_trace_noop_without_dir(monkeypatch):
-    monkeypatch.delenv("TPU_ORC_TRACE", raising=False)
+    monkeypatch.delenv("ORC_TRACE", raising=False)
     with device_trace(None) as d:
         assert d is None
 
@@ -56,17 +56,15 @@ def test_device_trace_writes_profile(tmp_path):
     assert found, "no profiler artifacts written"
 
 
-def test_run_all_writes_metrics(tmp_path, rng):
+def test_run_all_writes_metrics(adapters_dir, tmp_path, rng):
     """metrics.json lands next to run_report.json with per-stage rows."""
-    from tpu_orc.demux.adapters import AdapterBank
-    from tpu_orc.io import encode
-    from tpu_orc.pipeline.stages import run_all
-
-    REF = "/root/reference/adapters_primers"
-    sp5 = AdapterBank.from_fasta(f"{REF}/M13_amplicon_indices_forward.fa",
+    from nano_orc.demux.adapters import AdapterBank
+    from nano_orc.io import encode
+    from nano_orc.pipeline.stages import PipelineConfig, run_all
+    sp5 = AdapterBank.from_fasta(f"{adapters_dir}/M13_amplicon_indices_forward.fa",
                                  0.1)
     sp27 = AdapterBank.from_fasta(
-        f"{REF}/M13_amplicon_indices_reverse_rc.fa", 0.1)
+        f"{adapters_dir}/M13_amplicon_indices_reverse_rc.fa", 0.1)
     # pychopper-style reads: SP5...insert...SP27 with quality lines
     fq = tmp_path / "in.fastq"
     with open(fq, "w") as fh:
@@ -74,7 +72,8 @@ def test_run_all_writes_metrics(tmp_path, rng):
             ins = "".join(rng.choice(list("ACGT"), size=320))
             s = sp5.seqs[i % 2] + ins + sp27.seqs[i % 2]
             fh.write(f"@r{i}\n{s}\n+\n{'I' * len(s)}\n")
-    rep = run_all(str(fq), str(tmp_path / "out"), "ds", "COI")
+    rep = run_all(str(fq), str(tmp_path / "out"), "ds", "COI",
+                  cfg=PipelineConfig(adapters_dir))
     mpath = tmp_path / "out" / "metrics.json"
     assert mpath.exists()
     m = json.load(open(mpath))

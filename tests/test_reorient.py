@@ -2,30 +2,33 @@
 import numpy as np
 import pytest
 
-from tpu_orc.demux.reorient import (Reorienter, ReorientConfig,
+from nano_orc.demux.reorient import (Reorienter, ReorientConfig,
                                     parse_orientation_config)
-from tpu_orc.io import encode
-from tpu_orc.io.fastq import Record, read_fasta
+from nano_orc.io import encode
+from nano_orc.io.fastq import Record, read_fasta
 
-REF = "/root/reference/adapters_primers"
-PRIMERS = f"{REF}/M13_seqs_for_pychopper.fa"
 CONFIG = "+:SP5,-SP27|-:SP27,-SP5"
 
 
 @pytest.fixture(scope="module")
-def reorienter():
+def primers(adapters_dir):
+    return f"{adapters_dir}/M13_seqs_for_pychopper.fa"
+
+
+@pytest.fixture(scope="module")
+def reorienter(primers):
     # insert-recovery tests use keep_primers=False; the default (True,
     # pychopper -p) is covered by test_keep_primers_preserves_indices.
     # q pinned (0.75 -> budget floor(0.25*58)=14) so single-read unit
     # tests don't depend on the autotune sample; autotune has its own
     # test below.
-    return Reorienter(PRIMERS, CONFIG,
+    return Reorienter(primers, CONFIG,
                       ReorientConfig(keep_primers=False, q=0.75))
 
 
 @pytest.fixture(scope="module")
-def profiles():
-    recs = {r.id: r.seq for r in read_fasta(PRIMERS)}
+def profiles(primers):
+    recs = {r.id: r.seq for r in read_fasta(primers)}
     return recs["SP5"], recs["SP27"]
 
 
@@ -120,7 +123,7 @@ def test_noisy_primers_still_classified(reorienter, profiles, rng):
     assert res.stats["pass"] == 1
 
 
-def test_keep_primers_preserves_indices(profiles):
+def test_keep_primers_preserves_indices(primers, profiles):
     """Default mode (-p): indices survive for stage-02 demux."""
     rng = np.random.default_rng(44)  # hermetic: independent of test order
     sp5, sp27 = profiles
@@ -128,7 +131,7 @@ def test_keep_primers_preserves_indices(profiles):
     c5 = concretize(rng, sp5)
     c27rc = encode.revcomp(concretize(rng, sp27))
     seq = "GGTTGG" + c5 + insert + c27rc + "CCAACC"
-    r = Reorienter(PRIMERS, CONFIG, ReorientConfig(q=0.75))
+    r = Reorienter(primers, CONFIG, ReorientConfig(q=0.75))
     res = r.run([Record("k1", "k1", seq, "I" * len(seq))])
     assert res.stats["pass"] == 1
     out = res.passed[0].seq
@@ -156,12 +159,12 @@ def test_primers_out_of_order_unclassified(reorienter, profiles, rng):
 # against the budget floor((1-q)*58).
 # ---------------------------------------------------------------------------
 
-def test_vector_truncated_primer_rejected(profiles, rng):
+def test_vector_truncated_primer_rejected(primers, profiles, rng):
     """SP5 truncated to its last 30 bases: the INFIX scan must align the
     FULL 58nt primer, so 28 missing bases = 28 edits > budget 14
     (q=0.75) -> unclassified."""
     sp5, sp27 = profiles
-    r = Reorienter(PRIMERS, CONFIG,
+    r = Reorienter(primers, CONFIG,
                    ReorientConfig(keep_primers=False, q=0.75))
     insert = "".join(rng.choice(list("ACGT"), size=150))
     seq = concretize(rng, sp5)[28:] + insert \
@@ -170,11 +173,11 @@ def test_vector_truncated_primer_rejected(profiles, rng):
     assert res.stats["unclass"] == 1 and res.stats["pass"] == 0
 
 
-def test_vector_truncated_primer_within_budget(profiles, rng):
+def test_vector_truncated_primer_within_budget(primers, profiles, rng):
     """SP5 truncated by 10 bases: 10 edits <= budget 14 -> classified;
     the emitted insert is exact."""
     sp5, sp27 = profiles
-    r = Reorienter(PRIMERS, CONFIG,
+    r = Reorienter(primers, CONFIG,
                    ReorientConfig(keep_primers=False, q=0.75))
     insert = "".join(rng.choice(list("ACGT"), size=150))
     seq = concretize(rng, sp5)[10:] + insert \
@@ -184,11 +187,11 @@ def test_vector_truncated_primer_within_budget(profiles, rng):
     assert res.passed[0].seq == insert
 
 
-def test_vector_mid_read_adapter_only_unclass(profiles, rng):
+def test_vector_mid_read_adapter_only_unclass(primers, profiles, rng):
     """A single SP5 in the middle with no SP27 anywhere: no orientation
     config matches (both require a 5' AND a 3' primer) -> unclass."""
     sp5, _ = profiles
-    r = Reorienter(PRIMERS, CONFIG,
+    r = Reorienter(primers, CONFIG,
                    ReorientConfig(keep_primers=False, q=0.75))
     left = "".join(rng.choice(list("ACGT"), size=120))
     right = "".join(rng.choice(list("ACGT"), size=130))
@@ -197,11 +200,11 @@ def test_vector_mid_read_adapter_only_unclass(profiles, rng):
     assert res.stats["unclass"] == 1
 
 
-def test_vector_q_boundary(profiles, rng):
+def test_vector_q_boundary(primers, profiles, rng):
     """Mean-Q exactly at the threshold passes (>= Q, spec rule 6);
     one point below fails. Phred '+' = Q10, '*' = Q9."""
     sp5, sp27 = profiles
-    r = Reorienter(PRIMERS, CONFIG,
+    r = Reorienter(primers, CONFIG,
                    ReorientConfig(keep_primers=False, q=0.75, qmin=10.0))
     insert = "".join(rng.choice(list("ACGT"), size=120))
     seq = concretize(rng, sp5) + insert \
@@ -214,11 +217,11 @@ def test_vector_q_boundary(profiles, rng):
     assert res.passed[0].id == "at"
 
 
-def test_vector_triple_fused(profiles, rng):
+def test_vector_triple_fused(primers, profiles, rng):
     """Three concatenated full-length units: all three segments rescued,
     none passed (spec rule 7)."""
     sp5, sp27 = profiles
-    r = Reorienter(PRIMERS, CONFIG,
+    r = Reorienter(primers, CONFIG,
                    ReorientConfig(keep_primers=False, q=0.75))
     ins = ["".join(rng.choice(list("ACGT"), size=100 + 10 * k))
            for k in range(3)]
@@ -232,7 +235,7 @@ def test_vector_triple_fused(profiles, rng):
     assert [s.seq for s in res.rescued] == ins
 
 
-def test_autotune_picks_lenient_q_on_noisy_reads(profiles, rng):
+def test_autotune_picks_lenient_q_on_noisy_reads(primers, profiles, rng):
     """Autotune (spec rule 3): on reads whose primers carry ~8 edits,
     q=0.95 (budget 2) classifies nothing and q<=0.85 (budget >=8)
     classifies everything — the tuned q must come back lenient enough
@@ -251,7 +254,7 @@ def test_autotune_picks_lenient_q_on_noisy_reads(profiles, rng):
         seq = (mutate(concretize(rng, sp5), 8) + insert
                + mutate(encode.revcomp(concretize(rng, sp27)), 8))
         recs.append(Record(f"n{i}", f"n{i}", seq, q(len(seq))))
-    r = Reorienter(PRIMERS, CONFIG, ReorientConfig(keep_primers=False))
+    r = Reorienter(primers, CONFIG, ReorientConfig(keep_primers=False))
     res = r.run(recs)
     assert r.q is not None and r.q <= 0.87
     assert res.stats["pass"] == 20
@@ -274,11 +277,11 @@ def test_orientation_vote_both_strands(reorienter, profiles, rng):
     assert segs["p"] == segs["m"] == insert
 
 
-def test_classify_batch_matches_per_read_reference(rng):
+def test_classify_batch_matches_per_read_reference(primers, rng):
     """_classify_batch (vectorized config matching) against a plain
     per-read reference implementation of spec rule 4, on random hit
     tables with and without autotune budgets."""
-    r = Reorienter(PRIMERS, CONFIG, ReorientConfig(q=0.75))
+    r = Reorienter(primers, CONFIG, ReorientConfig(q=0.75))
     A = len(r.names)
     B = 400
     hits = {
@@ -329,12 +332,12 @@ def test_classify_batch_matches_per_read_reference(rng):
 # interval scheduling replacing the r3 best-hit + remainder re-scan.
 # ---------------------------------------------------------------------------
 
-def test_scheduler_equals_classify_on_single_segment_tables(rng):
+def test_scheduler_equals_classify_on_single_segment_tables(primers, rng):
     """EQUIVALENCE property behind the fast path: on hit tables with at
     most one hit per primer and exactly one matching config (the
     fast-path gate), the rule-8 scheduler selects exactly the segment
     the vectorized classify picks."""
-    r = Reorienter(PRIMERS, CONFIG, ReorientConfig(q=0.75))
+    r = Reorienter(primers, CONFIG, ReorientConfig(q=0.75))
     A = len(r.names)
     B = 300
     hits = {
@@ -361,7 +364,7 @@ def test_scheduler_equals_classify_on_single_segment_tables(rng):
         assert n_checked > 20  # the property actually exercised
 
 
-def test_run_fast_path_equals_forced_scheduler(profiles, rng):
+def test_run_fast_path_equals_forced_scheduler(primers, profiles, rng):
     """End-to-end equivalence: the same clean batch routed through the
     fast path (default) and through the full enumerate+schedule path
     (FORCE_SCHEDULE routes every read with hits into the scheduler)
@@ -375,10 +378,10 @@ def test_run_fast_path_equals_forced_scheduler(profiles, rng):
         if i % 3 == 0:
             seq = encode.revcomp(seq)
         recs.append(Record(f"c{i}", f"c{i}", seq, q(len(seq))))
-    fast = Reorienter(PRIMERS, CONFIG,
+    fast = Reorienter(primers, CONFIG,
                       ReorientConfig(keep_primers=False, q=0.75))
     res_fast = fast.run(recs)
-    slow = Reorienter(PRIMERS, CONFIG,
+    slow = Reorienter(primers, CONFIG,
                       ReorientConfig(keep_primers=False, q=0.75))
     slow.FORCE_SCHEDULE = True  # force full enumeration + scheduling
     res_slow = slow.run(recs)
@@ -388,7 +391,7 @@ def test_run_fast_path_equals_forced_scheduler(profiles, rng):
             == [(x.id, x.seq, x.qual) for x in res_slow.passed])
 
 
-def test_scheduler_recovers_out_of_order_fused(profiles):
+def test_scheduler_recovers_out_of_order_fused(primers, profiles):
     """The r3 deviation's failure case, now fixed: a fused read whose
     BEST hit per primer pairs out of order (best SP5 in unit 2, best
     -SP27 in unit 1). Best-hit classification alone finds no ordered
@@ -415,7 +418,7 @@ def test_scheduler_recovers_out_of_order_fused(profiles):
     unit2 = (concretize(rng, sp5) + ins2
              + mutate(encode.revcomp(concretize(rng, sp27)), 6))
     seq = unit1 + unit2
-    r = Reorienter(PRIMERS, CONFIG,
+    r = Reorienter(primers, CONFIG,
                    ReorientConfig(keep_primers=False, q=0.75))
     res = r.run([Record("oo", "oo", seq, q(len(seq)))])
     assert res.stats["scheduled_reads"] == 1
@@ -437,7 +440,7 @@ def test_scheduler_recovers_out_of_order_fused(profiles):
         (res.rescued[1].seq, ins2)
 
 
-def test_interior_fused_not_emitted_as_chimera(profiles):
+def test_interior_fused_not_emitted_as_chimera(primers, profiles):
     """Code-review regression (r4): a fused read whose per-primer BEST
     hits are the two OUTER primers — unit 1 has exact SP5 + noisy
     -SP27, unit 2 noisy SP5 + exact -SP27 — pairs those outer hits
@@ -462,7 +465,7 @@ def test_interior_fused_not_emitted_as_chimera(profiles):
         unit2 = (mutate(concretize(rng, sp5), 6) + ins2
                  + encode.revcomp(concretize(rng, sp27)))
         seq = unit1 + unit2
-        r = Reorienter(PRIMERS, CONFIG,
+        r = Reorienter(primers, CONFIG,
                        ReorientConfig(keep_primers=False, q=0.75))
         res = r.run([Record(f"if{trial}", f"if{trial}", seq,
                             q(len(seq)))])
@@ -478,7 +481,7 @@ def test_interior_fused_not_emitted_as_chimera(profiles):
         assert wobble(res.rescued[1].seq, ins2), trial
 
 
-def test_fast_path_equals_forced_scheduler_adversarial(profiles):
+def test_fast_path_equals_forced_scheduler_adversarial(primers, profiles):
     """r5 property: the nloc/nacc-gated fast path must produce EXACTLY
     the forced-enumeration outputs on a messy batch — noisy primers,
     fused reads, truncated primers, primer-free junk, '-' strands —
@@ -524,9 +527,9 @@ def test_fast_path_equals_forced_scheduler_adversarial(profiles):
             s = encode.revcomp(s)
         recs.append(Record(f"a{i}", f"a{i}", s, q(len(s))))
 
-    fast = Reorienter(PRIMERS, CONFIG, ReorientConfig(q=0.75))
+    fast = Reorienter(primers, CONFIG, ReorientConfig(q=0.75))
     res_fast = fast.run(recs)
-    forced = Reorienter(PRIMERS, CONFIG, ReorientConfig(q=0.75))
+    forced = Reorienter(primers, CONFIG, ReorientConfig(q=0.75))
     forced.FORCE_SCHEDULE = True
     res_forced = forced.run(recs)
 

@@ -5,10 +5,10 @@ import os
 import numpy as np
 import pytest
 
-from tpu_orc.io import encode
-from tpu_orc.io.fastq import Record
-from tpu_orc.rrna.hmm import profile_from_seqs, viterbi_scan, parse_hmmer3
-from tpu_orc.rrna.extract import (extract_rrna, find_gene_exemplar,
+from nano_orc.io import encode
+from nano_orc.io.fastq import Record
+from nano_orc.rrna.hmm import profile_from_seqs, viterbi_scan, parse_hmmer3
+from nano_orc.rrna.extract import (extract_rrna, find_gene_exemplar,
                                   find_gene_profile)
 
 
@@ -180,9 +180,9 @@ def test_hmmer3_realistic_euk_file(tmp_path, rng):
     """Multi-model barrnap-euk-style .hmm: both models parse, and the
     full 05a stage (parse -> device Viterbi both strands -> split into
     _18S.fa/_28S.fa) recovers planted genes from synthetic contigs."""
-    from tpu_orc.io import encode as enc
-    from tpu_orc.io.fastq import Record
-    from tpu_orc.rrna.extract import extract_rrna
+    from nano_orc.io import encode as enc
+    from nano_orc.io.fastq import Record
+    from nano_orc.rrna.extract import extract_rrna
 
     motif18 = "".join(rng.choice(list("ACGT"), size=120))
     motif28 = "".join(rng.choice(list("ACGT"), size=160))
@@ -230,7 +230,7 @@ def test_viterbi_position_dependent_dd_host_parity(rng):
     POSITION-DEPENDENT DD transitions (HMMER3 models have per-node DD;
     VERDICT r1 weak#3). Parity vs the naive float64 host Viterbi on a
     model with varying transitions and reads that force deletion runs."""
-    from tpu_orc.rrna.hmm import ProfileHMM, viterbi_host, viterbi_scan
+    from nano_orc.rrna.hmm import ProfileHMM, viterbi_host, viterbi_scan
 
     K = 48
     motif = rng.integers(0, 4, size=K)
@@ -274,9 +274,9 @@ def test_anchor_default_extraction(rng):
     [18S' | ITS1 | 5.8S | ITS2 | 28S'] (with the universal junction
     motifs at the boundaries, a few errors allowed) split into 18S and
     28S segments on both strands; a junk contig yields nothing."""
-    from tpu_orc.io import encode as enc
-    from tpu_orc.io.fastq import Record
-    from tpu_orc.rrna.anchors import (ANCHOR_18S_END, ANCHOR_28S_START,
+    from nano_orc.io import encode as enc
+    from nano_orc.io.fastq import Record
+    from nano_orc.rrna.anchors import (ANCHOR_18S_END, ANCHOR_28S_START,
                                       find_rrna_by_anchors)
 
     def pad(n):
@@ -307,7 +307,7 @@ def test_anchor_default_extraction(rng):
     # the detector extrapolates the documented ANCHOR_28S_LEAD (40 nt of
     # unconserved 28S 5' leader + core ahead of the NL1 site) upstream
     # of the anchor — the true ITS2/28S junction (r4 bias fix)
-    from tpu_orc.rrna.anchors import ANCHOR_28S_LEAD
+    from nano_orc.rrna.anchors import ANCHOR_28S_LEAD
     exp28 = ANCHOR_28S_LEAD + len(ANCHOR_28S_START) + len(body28)
     assert abs(len(by28["p"].seq) - exp28) <= 3
     # - strand sequences come out reoriented to the gene sense
@@ -337,7 +337,7 @@ def test_parse_real_format_euk_fixture():
     including 5_8S_rRNA, node indices verified, annotation columns
     ignored, '*' -> -inf on the last node's m->d/d->d, emissions
     converted to log-odds."""
-    from tpu_orc.rrna.hmm import parse_hmmer3
+    from nano_orc.rrna.hmm import parse_hmmer3
     models = {m.name: m for m in parse_hmmer3(EUK_HMM)}
     assert set(models) == {"18S_rRNA", "5_8S_rRNA", "28S_rRNA"}
     cons = _json.load(open(EUK_CONS))
@@ -358,10 +358,10 @@ def test_profile_mode_realistic_fixture(rng):
     genes that carry substitutions AND indels, on both strands, at the
     right coordinates — the fixture consensus is data the extraction
     module has no access to (de-circularized)."""
-    from tpu_orc.io import encode as enc
-    from tpu_orc.io.fastq import Record
-    from tpu_orc.rrna.extract import extract_rrna
-    from tpu_orc.rrna.hmm import parse_hmmer3
+    from nano_orc.io import encode as enc
+    from nano_orc.io.fastq import Record
+    from nano_orc.rrna.extract import extract_rrna
+    from nano_orc.rrna.hmm import parse_hmmer3
 
     models = {m.name: m for m in parse_hmmer3(EUK_HMM)}
     cons = _json.load(open(EUK_CONS))
@@ -410,8 +410,8 @@ def test_profile_mode_realistic_fixture(rng):
 def test_stage_rrna_uses_hmm_file(tmp_path, rng):
     """PipelineConfig(rrna_hmm=euk_rrna.hmm) routes stage 05a through
     profile mode with the file's 18S_rRNA/28S_rRNA models."""
-    from tpu_orc.io.fastq import Record, write_records
-    from tpu_orc.pipeline.stages import PipelineConfig, stage_rrna
+    from nano_orc.io.fastq import Record, write_records
+    from nano_orc.pipeline.stages import PipelineConfig, stage_rrna
 
     cons = _json.load(open(EUK_CONS))
 
@@ -433,8 +433,8 @@ def test_anchor_junctions_mutated_and_indeled(rng):
     the anchors: 2 subs + 1 indel on the 19-mer (identity 0.842) stays
     above the 0.75 slack and splits correctly; 5 edits (0.737) falls
     below and yields no hit for that gene."""
-    from tpu_orc.io.fastq import Record
-    from tpu_orc.rrna.anchors import (ANCHOR_18S_END, ANCHOR_28S_START,
+    from nano_orc.io.fastq import Record
+    from nano_orc.rrna.anchors import (ANCHOR_18S_END, ANCHOR_28S_START,
                                       find_rrna_by_anchors)
 
     def pad(n):
@@ -455,8 +455,8 @@ def test_anchor_junctions_mutated_and_indeled(rng):
     # below-slack junction: planted edits only UPPER-bound the true HW
     # distance (adjacent sub+del can merge), so retry until the true
     # infix distance of the anchor within the contig is > floor(0.25*19)
-    from tpu_orc import native
-    from tpu_orc.io import encode as _enc
+    from nano_orc import native
+    from nano_orc.io import encode as _enc
     a18 = _enc.encode_codes(ANCHOR_18S_END)
     while True:
         j18_bad = edit(ANCHOR_18S_END, 4, 2)
@@ -481,9 +481,9 @@ def test_anchor_junctions_mutated_and_indeled(rng):
 def test_extract_rrna_anchor_default_layout(tmp_path, rng):
     """extract_rrna with no model inputs writes _18S.fa/_28S.fa via the
     anchor default (run_all stage 05 now runs out of the box)."""
-    from tpu_orc.io.fastq import Record
-    from tpu_orc.rrna.anchors import ANCHOR_18S_END, ANCHOR_28S_START
-    from tpu_orc.rrna.extract import extract_rrna
+    from nano_orc.io.fastq import Record
+    from nano_orc.rrna.anchors import ANCHOR_18S_END, ANCHOR_28S_START
+    from nano_orc.rrna.extract import extract_rrna
 
     def pad(n):
         return "".join(rng.choice(list("ACGT"), size=n))
@@ -515,7 +515,7 @@ def _realistic_rrna_contig(rng, subs=2, dels=1):
     """Full 18S|ITS1|5.8S|ITS2|28S amplicon whose conserved cores are
     mutated+indel'd (NOT the module constants) at realistic inter-block
     spacing. Returns (contig, j18, j28)."""
-    from tpu_orc.rrna.profiles import EUK_SSU_BLOCKS, EUK_LSU_BLOCKS, IUPAC
+    from nano_orc.rrna.profiles import EUK_SSU_BLOCKS, EUK_LSU_BLOCKS, IUPAC
 
     def pad(n):
         return "".join(rng.choice(list("ACGT"), size=n))
@@ -546,7 +546,7 @@ def test_block_profile_default_mutated_contig():
     (log-odds score >= min_score, not the identity-scale anchor
     fallback) on a contig whose every conserved core carries 2 subs +
     1 indel, and splits at the true junctions on both strands."""
-    from tpu_orc.rrna.profiles import find_rrna_default
+    from nano_orc.rrna.profiles import find_rrna_default
 
     rng = np.random.default_rng(7)
     contig, j18, j28 = _realistic_rrna_contig(rng)
@@ -572,7 +572,7 @@ def test_block_profile_28s_only_pairB_amplicon():
     """Pair-B style amplicon (28S only, starting mid-way into the LSU
     5' core, no 18S content): the 28S profile fires with the junction at
     the contig start; no 18S hit is emitted."""
-    from tpu_orc.rrna.profiles import (EUK_LSU_BLOCKS, IUPAC,
+    from nano_orc.rrna.profiles import (EUK_LSU_BLOCKS, IUPAC,
                                        find_rrna_default)
 
     rng = np.random.default_rng(8)
@@ -598,8 +598,8 @@ def test_block_profile_falls_back_to_anchor():
     profile gate (the lone junction block nets ~19 nats < 25) but within
     the anchor's 0.75 identity slack — behavior matches the r2 anchor
     default: identity-scale score, anchor-footprint split."""
-    from tpu_orc.rrna.anchors import ANCHOR_18S_END, ANCHOR_28S_START
-    from tpu_orc.rrna.profiles import find_rrna_default
+    from nano_orc.rrna.anchors import ANCHOR_18S_END, ANCHOR_28S_START
+    from nano_orc.rrna.profiles import find_rrna_default
 
     rng = np.random.default_rng(9)
 
@@ -615,7 +615,7 @@ def test_block_profile_falls_back_to_anchor():
     assert h18.score <= 1.0 and h28.score <= 1.0   # identity scale
     assert abs(h18.end - (400 + len(j18))) <= 2
     # anchor fallback extrapolates the documented 40 nt lead (r4)
-    from tpu_orc.rrna.anchors import ANCHOR_28S_LEAD
+    from nano_orc.rrna.anchors import ANCHOR_28S_LEAD
     assert abs(h28.start
                - (400 + len(j18) + 250 - ANCHOR_28S_LEAD)) <= 2
 
@@ -625,8 +625,8 @@ def test_block_profile_no_new_false_positives():
     anchor fallback on pure-random contigs — any random hit must carry
     an identity-scale fallback score and also appear in the r2
     anchor-only detector's output."""
-    from tpu_orc.rrna.anchors import find_rrna_by_anchors
-    from tpu_orc.rrna.profiles import find_rrna_default
+    from nano_orc.rrna.anchors import find_rrna_by_anchors
+    from nano_orc.rrna.profiles import find_rrna_default
 
     rng = np.random.default_rng(10)
 
@@ -648,7 +648,7 @@ def test_barrnap_gff3_sidecar(tmp_path):
     (05a_barrnap_rRNA_extract.sh:66-72): a GFF3 with 1-based inclusive
     coordinates + barrnap attribute conventions, and the combined
     pre-split _euk.fa."""
-    from tpu_orc.rrna.extract import RRNAHit, write_barrnap_sidecars
+    from nano_orc.rrna.extract import RRNAHit, write_barrnap_sidecars
     hits = {
         "18S": [RRNAHit("18S", "c1", 0, 1800, "+", 321.5, "A" * 1800)],
         "28S": [RRNAHit("28S", "c1", 2100, 5400, "+", 777.0,
@@ -678,8 +678,8 @@ def test_parse_cm_extracts_filter_profiles(tmp_path):
     HMMER3 fixture (U->T re-alphabetized), keyed by CM names, and
     route to genes via SSU/LSU naming."""
     import numpy as np
-    from tpu_orc.rrna.cm import parse_cm, profiles_by_gene
-    from tpu_orc.rrna.hmm import parse_hmmer3
+    from nano_orc.rrna.cm import parse_cm, profiles_by_gene
+    from nano_orc.rrna.hmm import parse_hmmer3
     fix = os.path.join(os.path.dirname(__file__), "fixtures")
     cm_path = os.path.join(fix, "euk_rrna.cm")
     cms = parse_cm(cm_path)
@@ -705,10 +705,10 @@ def test_extract_rrna_with_cm_profiles(tmp_path):
     import json
 
     import numpy as np
-    from tpu_orc.io import encode
-    from tpu_orc.io.fastq import Record
-    from tpu_orc.rrna.cm import parse_cm, profiles_by_gene
-    from tpu_orc.rrna.extract import extract_rrna
+    from nano_orc.io import encode
+    from nano_orc.io.fastq import Record
+    from nano_orc.rrna.cm import parse_cm, profiles_by_gene
+    from nano_orc.rrna.extract import extract_rrna
     fix = os.path.join(os.path.dirname(__file__), "fixtures")
     cons = json.load(open(os.path.join(fix,
                                        "euk_rrna_consensus.json")))
@@ -740,8 +740,8 @@ def test_rrna_cli_cm_flag(tmp_path):
     import json
 
     import numpy as np
-    from tpu_orc.cli import main as cli_main
-    from tpu_orc.io.fastq import Record, write_records
+    from nano_orc.cli import main as cli_main
+    from nano_orc.io.fastq import Record, write_records
     fix = os.path.join(os.path.dirname(__file__), "fixtures")
     cons = json.load(open(os.path.join(fix, "euk_rrna_consensus.json")))
     rng = np.random.default_rng(12)

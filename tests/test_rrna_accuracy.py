@@ -15,9 +15,9 @@ p90 <= 25 nt per junction (18S/ITS1 and ITS2/28S), both strands.
 import numpy as np
 import pytest
 
-from tpu_orc.io import encode
-from tpu_orc.io.fastq import Record
-from tpu_orc.rrna.profiles import (EUK_LSU_BLOCKS, EUK_SSU_BLOCKS,
+from nano_orc.io import encode
+from nano_orc.io.fastq import Record
+from nano_orc.rrna.profiles import (EUK_LSU_BLOCKS, EUK_SSU_BLOCKS,
                                    find_rrna_default)
 
 IUPAC = {"R": "AG", "Y": "CT", "S": "GC", "W": "AT", "K": "GT",

@@ -2,8 +2,8 @@
 must produce identical edges/sims (they implement one spec)."""
 import numpy as np
 
-from tpu_orc.cluster.scoring import DeviceScorer
-from tpu_orc.io import encode
+from nano_orc.cluster.scoring import DeviceScorer
+from nano_orc.io import encode
 
 
 def make_family(rng, n, L, err=0.06):
@@ -29,7 +29,7 @@ def test_allvsall_backend_parity(rng):
     # flip a few to reverse-complement to exercise the rc-retry rule
     for k in (3, 11, 17):
         codes[k] = encode.revcomp_codes(codes[k])
-    dev = DeviceScorer(tile=64, backend="device")
+    dev = DeviceScorer(tile=64, backend="xla")
     nat = DeviceScorer(backend="native")
     hd = dev.allvsall_effective_sims(codes, keep_threshold=0.7)
     hn = nat.allvsall_effective_sims(codes, keep_threshold=0.7)
@@ -43,7 +43,7 @@ def test_allvsall_backend_parity(rng):
 def test_reads_vs_consensus_backend_parity(rng):
     codes = make_family(rng, 12, 250)
     cons = make_family(rng, 3, 250, err=0.0)
-    dev = DeviceScorer(backend="device")
+    dev = DeviceScorer(backend="xla")
     nat = DeviceScorer(backend="native")
     sd = dev.reads_vs_consensus_sims(codes, cons)
     sn = nat.reads_vs_consensus_sims(codes, cons)

@@ -7,21 +7,19 @@ import os
 import numpy as np
 import pytest
 
-from tpu_orc.demux.adapters import AdapterBank
-from tpu_orc.demux.demux import dual_round_demux, dual_round_demux_stream
-from tpu_orc.demux.reorient import ReorientConfig, reorient_file
-from tpu_orc.io import encode
-from tpu_orc.io.fastq import Record, read_records, write_records
-
-REF = "/root/reference/adapters_primers"
+from nano_orc.demux.adapters import AdapterBank
+from nano_orc.demux.demux import dual_round_demux, dual_round_demux_stream
+from nano_orc.demux.reorient import ReorientConfig, reorient_file
+from nano_orc.io import encode
+from nano_orc.io.fastq import Record, read_records, write_records
 
 
 @pytest.fixture(scope="module")
-def banks():
-    sp5 = AdapterBank.from_fasta(f"{REF}/M13_amplicon_indices_forward.fa",
+def banks(adapters_dir):
+    sp5 = AdapterBank.from_fasta(f"{adapters_dir}/M13_amplicon_indices_forward.fa",
                                  0.1)
     sp27 = AdapterBank.from_fasta(
-        f"{REF}/M13_amplicon_indices_reverse_rc.fa", 0.1)
+        f"{adapters_dir}/M13_amplicon_indices_reverse_rc.fa", 0.1)
     return sp5, sp27
 
 
@@ -86,7 +84,7 @@ def test_demux_stream_never_materializes(tmp_path, banks):
     # pull all 300 before any processing (max_ahead == 300). 'done'
     # advances via the report accumulator, called once per read as
     # each chunk is processed.
-    from tpu_orc.demux import report as report_mod
+    from nano_orc.demux import report as report_mod
 
     class SpyAccum(report_mod.RoundReportAccum):
         def add(self, rec, row):
@@ -105,11 +103,11 @@ def test_demux_stream_never_materializes(tmp_path, banks):
     assert state["max_ahead"] <= 50, state["max_ahead"]
 
 
-def test_reorient_file_stream_equals_oneshot(tmp_path):
-    from tpu_orc.io.fastq import read_fasta
+def test_reorient_file_stream_equals_oneshot(adapters_dir, tmp_path):
+    from nano_orc.io.fastq import read_fasta
     rng = np.random.default_rng(7)
     m13 = {r.id: r.seq.upper()
-           for r in read_fasta(f"{REF}/M13_seqs_for_pychopper.fa")}
+           for r in read_fasta(f"{adapters_dir}/M13_seqs_for_pychopper.fa")}
 
     def conc(p):
         return "".join(str(rng.choice(list("ACGT"))) if c == "N" else c
@@ -126,8 +124,8 @@ def test_reorient_file_stream_equals_oneshot(tmp_path):
         recs.append(Record(f"q{i}", f"q{i}", s, "I" * len(s)))
     fq = str(tmp_path / "in.fastq")
     write_records(fq, recs, fmt="fastq")
-    cfgp = f"{REF}/M13_config_for_pychopper.txt"
-    pf = f"{REF}/M13_seqs_for_pychopper.fa"
+    cfgp = f"{adapters_dir}/M13_config_for_pychopper.txt"
+    pf = f"{adapters_dir}/M13_seqs_for_pychopper.fa"
     r1 = reorient_file(fq, pf, cfgp, str(tmp_path / "one"), "x",
                        ReorientConfig(q=0.75))
     r2 = reorient_file(fq, pf, cfgp, str(tmp_path / "blk"), "x",
